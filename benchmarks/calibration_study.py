@@ -15,8 +15,7 @@ selects — the platform and the engine that actually executed are recorded
 per row, so the artefact states which shipped configuration it calibrates.
 
 Every attempted (config, seed) produces a row: failures are recorded with
-``"failed": true`` and the error, never silently dropped (VERDICT r4
-weak-2).  Rows are appended to ``calibration_study.jsonl`` as they finish
+``"failed": true`` and the error, never silently dropped.  Rows are appended to ``calibration_study.jsonl`` as they finish
 (the study is resumable / interruption-tolerant); the final summary and all
 rows are written to ``benchmarks/calibration_study.json``.
 
@@ -84,12 +83,9 @@ def run_one(seed, sync, bs, chain_epochs=1):
 def main():
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_comp_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    from polychordlite_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     platform = jax.devices()[0].platform
     try:
         rev = subprocess.run(

@@ -1,10 +1,10 @@
-"""Multi-process strong-scaling proxy for the epoch phase (VERDICT r4
-item 6; reference bar: MPI scaling documented up to O(nlive) cores,
-``/root/reference/README.rst:371-377``).
+"""Multi-process strong-scaling proxy for the epoch phase (reference bar:
+MPI scaling documented up to O(nlive) cores, ``README.rst:371-377`` of the
+reference).
 
-Real multi-host TPU hardware is not available in this image, and the host
-has only 2 physical cores — so the honest proxy is: fixed global chain
-batch B, P ∈ {1, 2} ``jax.distributed`` processes each PINNED TO ONE CORE
+This is a CPU-only proxy: every worker process runs JAX on the CPU backend,
+and the parent process never imports JAX.  It was built for a host with 2
+physical cores, so the honest proxy is: fixed global chain batch B, P ∈ {1, 2} ``jax.distributed`` processes each PINNED TO ONE CORE
 (taskset), one virtual CPU device per process, epoch time measured by the
 K-epoch slope (excludes compile + fixed dispatch overhead).  Strong-scaling
 efficiency = T(P=1) / (P · T(P)).  P > 2 cannot be measured without
@@ -118,7 +118,9 @@ def run_config(script, n_proc, B, K=12, D=8, R=16):
 
 
 def main():
-    script = "/tmp/scaling_worker.py"
+    import tempfile
+
+    script = os.path.join(tempfile.gettempdir(), "scaling_worker.py")
     with open(script, "w") as f:
         f.write(WORKER % {"repo": REPO})
 

@@ -1,7 +1,7 @@
 """Repeated-seed pull study on the 20-D normalised Gaussian oracle.
 
-VERDICT r1 item 7: the single-run 20-D check landed at 2.06 sigma; decide
-whether that was MC noise or a systematic offset.  Runs the same oracle over
+A single-run 20-D check once landed at 2.06 sigma; this decides whether
+such a pull is MC noise or a systematic offset.  Runs the same oracle over
 N seeds and reports the mean pull (bias) and pull sigma (calibration of the
 reported logZerr).  Analytic logZ = 0 for the normalised Gaussian whose mass
 lies inside the unit hypercube (reference likelihoods/examples/gaussian.f90).

@@ -1,8 +1,8 @@
-"""polychordlite_tpu — a TPU-native nested-sampling framework.
+"""polychordlite_tpu — a nested-sampling framework on JAX/XLA.
 
 A from-scratch JAX/XLA re-architecture with the capabilities of
 PolyChordLite v1.22.2 (Bayesian evidence + posterior sampling via whitened
-slice sampling with multimodal KNN clustering), built for TPU hardware:
+slice sampling with multimodal KNN clustering), built for accelerators:
 batched slice-chain ensembles on the device mesh, float64 administrator
 bookkeeping on the host, pypolychord-compatible API and output files.
 """

@@ -1,7 +1,7 @@
 """Run-time information: the sampler's mutable state and the exact
 evidence-accumulation recurrences.
 
-This is the host-side administrator state of the TPU design (SURVEY §5.8): the
+This is the host-side administrator state of the batched design (SURVEY §5.8): the
 device engine generates batches of candidate chains; this module does the
 O(ndead) float64 bookkeeping that the reference performs on MPI rank 0 —
 semantics follow ``src/polychord/run_time_info.f90`` function-for-function
@@ -216,7 +216,7 @@ class RunTimeInfo:
         (utils/writebehind.py).  ``copy.deepcopy`` walks every dead-point
         row (O(ndead) python objects) and late in a long run the deepcopy
         on the critical path approaches the formatting cost the write-behind
-        thread was added to remove (ADVICE r4).  Policy by field type:
+        thread was added to remove.  Policy by field type:
 
         * append-only row lists (``dead``, ``logweights``, ``*_dead``):
           shallow list copy — rows are immutable after append (every

@@ -2,20 +2,21 @@
 
 Every factory returns a JAX-traceable ``loglikelihood(theta)`` closure; the
 engine vmaps it over the chain batch, so expressions here execute as fused
-(B, D) vector ops on the TPU.  Math and constants follow the cited reference
-files exactly (they are the correctness oracles — e.g. the normalised Gaussian
-integrates to Z = 1 over an infinite prior).
+(B, D) vector ops on the device.  Math and constants follow the cited
+reference files exactly (they are the correctness oracles — e.g. the
+normalised Gaussian integrates to Z = 1 over an infinite prior).
 
-Tile convention: every closure reduces over ``axis=0`` and broadcasts per-dim
-constants with :func:`_bc`, so the SAME function evaluates a single point
-``theta (D,)`` or a whole Pallas tile ``theta (D, S, L)`` — the requirement
-for the fused TPU kernel fast path (ops/pallas_engine.py).
+Parameter-axis convention: every closure reduces over ``axis=0`` and
+broadcasts per-dim constants with :func:`_bc`, so the SAME function
+evaluates a single point ``theta (D,)`` or a block of points with the
+parameter axis first, ``theta (D, ...)``.
 """
 
 from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -157,8 +158,7 @@ def eggbox(n_dims: int):
     """eggbox.f90: -(2 + prod cos(theta_i/2))^5."""
 
     def loglikelihood(theta):
-        # static unrolled product: jnp.prod (reduce_prod) has no Pallas TPU
-        # lowering and would demote the run to the scan engine
+        # product over the parameter axis, unrolled in a fixed order
         c = jnp.cos(theta / 2.0)
         p = c[0]
         for i in range(1, n_dims):
@@ -202,10 +202,8 @@ def gaussian_shells(n_dims: int, radius: float = 2.0, sigma: float = 0.1):
     A = _shell_norm(n_dims, radius, sigma)
 
     def loglikelihood(theta):
-        # centres expressed in per-coordinate scalar arithmetic (axis 0 =
-        # parameters): captured mu ARRAYS would become jaxpr constants,
-        # which pallas_call rejects — the shells row silently ran the scan
-        # engine until round 5's observability exposed it
+        # centres at x_1 = -3.5 and +3.5, in per-coordinate arithmetic
+        # (axis 0 = parameters)
         rest = jnp.sum(theta[1:] ** 2, axis=0)
         r1 = jnp.sqrt((theta[0] + 3.5) ** 2 + rest)
         r2 = jnp.sqrt((theta[0] - 3.5) ** 2 + rest)
@@ -232,7 +230,12 @@ def random_gaussian(n_dims: int, sigma: float = 0.1, seed: int = 0):
 
     def loglikelihood(theta):
         d = theta - mu
-        return norm - 0.5 * jnp.einsum("i...,ij,j...->...", d, invcov_j, d)
+        # HIGHEST: a TF32 product would round the quadratic form that the
+        # contour test compares
+        return norm - 0.5 * jnp.einsum(
+            "i...,ij,j...->...", d, invcov_j, d,
+            precision=jax.lax.Precision.HIGHEST,
+        )
 
     return loglikelihood
 

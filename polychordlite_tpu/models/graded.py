@@ -32,8 +32,8 @@ Requirements (documented deviations from the single-callable API):
   priors.py; the reference assumes the same for its grade blocks,
   ``priors.f90:671-749``);
 * ``grade_dims[0]`` must equal ``n_slow``;
-* graded runs use the scan engine (the Mosaic kernels have no aux
-  carry), and the slice-slot shuffle is shared across the chain batch so
+* graded runs use the scan engine (the one with the aux carry), and the
+  slice-slot shuffle is shared across the chain batch so
   each repeat is grade-uniform — statistically a seed change, exactly
   the license engine switching already has.
 """

@@ -1,6 +1,6 @@
 """Whitened chord-direction generation for the slice-sampling engine.
 
-TPU-native re-expression of the reference direction machinery
+Batched re-expression of the reference direction machinery
 (``src/polychord/chordal_sampling.f90:94-145`` +
 ``src/polychord/random_utils.F90:381-437``):
 
@@ -17,6 +17,10 @@ TPU-native re-expression of the reference direction machinery
 
 Everything is generated for all B chains at once with per-chain fold_in keys,
 so results are independent of how the chain batch is sharded across devices.
+
+Every float32 matrix product here asks for ``Precision.HIGHEST``: at
+default precision XLA may run a float32 product in TF32 (about three
+decimal digits) on GPUs.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from typing import Sequence, Tuple
 import jax
 import jax.numpy as jnp
 
-from .precision import real_dtype
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _gram_schmidt(gauss: jnp.ndarray, block: int = 5) -> jnp.ndarray:
@@ -40,14 +45,9 @@ def _gram_schmidt(gauss: jnp.ndarray, block: int = 5) -> jnp.ndarray:
     of a Gaussian matrix, which yields a Haar-distributed orthonormal basis
     (the residual projection keeps q_k · a_k > 0, i.e. the QR sign convention
     holds automatically; in exact arithmetic the blocked order computes the
-    identical unique positive-diagonal-R factor).  Blocking matters on TPU:
-    the round-1 column-at-a-time ``fori_loop`` re-read the full Q buffer on
-    every one of 2*dim steps (~2.6 GB of HBM traffic at the bench geometry,
-    ~6 ms/epoch measured, experiments/prof_dirs_parts.py); projecting each
-    column block against all previous blocks with two large batched matmuls
-    cuts the traffic ~4x and lets the MXU do the work.  Batched
-    ``jnp.linalg.cholesky``/``qr`` are non-starters on TPU (198 ms measured
-    for CholeskyQR2 at the same shape).
+    identical unique positive-diagonal-R factor).  Projecting each column
+    block against all previous blocks with two batched products reads the
+    Q buffer once per block instead of once per column.
     """
     dim = gauss.shape[-1]
     cols = []  # finished orthonormal column blocks, (..., dim, block) each
@@ -57,8 +57,8 @@ def _gram_schmidt(gauss: jnp.ndarray, block: int = 5) -> jnp.ndarray:
         if cols:
             q = jnp.concatenate(cols, axis=-1)  # (..., dim, b0)
             for _ in range(2):  # two sweeps: block CGS2
-                coeff = jnp.einsum("...dk,...dj->...kj", q, v)
-                v = v - jnp.einsum("...dk,...kj->...dj", q, coeff)
+                coeff = jnp.einsum("...dk,...dj->...kj", q, v, precision=_HI)
+                v = v - jnp.einsum("...dk,...kj->...dj", q, coeff, precision=_HI)
         # in-block CGS2, unrolled over <= block columns (static slices)
         done = []
         for k in range(v.shape[-1]):
@@ -66,8 +66,10 @@ def _gram_schmidt(gauss: jnp.ndarray, block: int = 5) -> jnp.ndarray:
             if done:
                 qb = jnp.concatenate(done, axis=-1)
                 for _ in range(2):
-                    coeff = jnp.einsum("...dk,...dj->...kj", qb, c)
-                    c = c - jnp.einsum("...dk,...kj->...dj", qb, coeff)
+                    coeff = jnp.einsum("...dk,...dj->...kj", qb, c, precision=_HI)
+                    c = c - jnp.einsum(
+                        "...dk,...kj->...dj", qb, coeff, precision=_HI
+                    )
             norm = jnp.sqrt(jnp.sum(c * c, axis=-2, keepdims=True))
             done.append(c / jnp.maximum(norm, 1e-30))
         cols.append(jnp.concatenate(done, axis=-1))
@@ -86,7 +88,7 @@ def _haar_bases(key, dim: int, count: int) -> jnp.ndarray:
 
 @functools.partial(
     jax.jit,
-    static_argnames=("grade_dims", "num_repeats", "n_dims", "use_kernel"),
+    static_argnames=("grade_dims", "num_repeats", "n_dims"),
 )
 def make_directions(
     chain_keys,  # (B,) batch of per-chain PRNG keys
@@ -95,7 +97,6 @@ def make_directions(
     grade_dims: Tuple[int, ...],
     num_repeats: Tuple[int, ...],
     n_dims: int,
-    use_kernel: bool = None,
     shared_perm_key=None,
 ):
     """Generate whitened slice directions for a batch of chains.
@@ -103,36 +104,19 @@ def make_directions(
     Returns (nhats (B,R,D) unit directions in cube space, w (B,R) initial
     widths, speeds (B,R) int32 grade index of each slot).
 
-    ``use_kernel`` selects the lane-batched Pallas Gram-Schmidt
-    (ops/pallas_dirs.py) — default on TPU, where the XLA einsum path's
-    MXU tile-padding waste costs 11.6 ms/epoch at the bench geometry vs
-    ~1 ms for the kernel.  Both paths consume identical RNG streams
-    (same per-chain keys, same gaussian draws); only the float-level
-    projection order of the orthonormalisation differs.
-
     ``shared_perm_key``: use ONE slot permutation for the whole batch
     (derived from this key) instead of per-chain shuffles.  Every engine
     passes it (derived from the epoch key, so it is shard-invariant):
     sharing the slot ORDER across chains couples nothing — directions
     stay per-chain random and chains are independent — while the
-    per-chain variant's (B, R, R) one-hot costs ~1.5 ms of HBM traffic
-    per epoch (experiments/prof_dirs_parts2.py), and the graded engine
-    requires the shared order anyway.  Documented deviation: the
+    per-chain variant materialises a (B, R, R) one-hot, and the graded
+    engine requires the shared order anyway.  Documented deviation: the
     reference shuffles per chord set (shuffle_deck,
     chordal_sampling.f90:132-139); statistically a seed change.
     ``None`` (direct callers/tests) keeps per-chain shuffles.
     """
     R = int(sum(num_repeats))
     B = chain_keys.shape[0]
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    from .pallas_dirs import LANE as _L, SC as _SC
-
-    use_kernel = (
-        use_kernel
-        and B % (_SC * _L) == 0
-        and real_dtype() == jnp.float32  # the GS kernel is f32-only
-    )
 
     def _perm_of(key):
         # Shuffle slots 1..R-1, keeping the first slot slow
@@ -151,85 +135,45 @@ def make_directions(
         ]
     )  # (R,)
 
-    if use_kernel:
-        from .pallas_dirs import gram_schmidt_lanes
-
-        all_keys = jax.vmap(
-            lambda ck: jax.random.split(ck, len(num_repeats) + 1)
-        )(chain_keys)  # (B, G+1, ...)
-        interp = jax.default_backend() == "cpu"
+    def per_chain(chain_key):
         blocks = []
+        keys = jax.random.split(chain_key, len(num_repeats) + 1)
         for g, reps in enumerate(num_repeats):
             start = int(sum(grade_dims[:g]))
             sub = n_dims - start  # grade spans [start, nDims)
-            n_bases = -(-reps // sub)
-            # identical draw to _haar_bases (same key, same shape)
-            gauss = jax.vmap(
-                lambda k: jax.random.normal(k, (n_bases, sub, sub))  # noqa: B023
-            )(all_keys[:, g])  # (B, NB, sub, sub)
-            qt = gram_schmidt_lanes(
-                gauss.transpose(1, 2, 3, 0), interpret=interp
-            )  # (NB, sub, sub, B), orthonormal columns
-            dirs = (
-                qt.transpose(3, 0, 2, 1).reshape(B, n_bases * sub, sub)[:, :reps]
-            )  # rows = directions, as _haar_bases
-            full = jnp.zeros((B, reps, n_dims)).at[:, :, start:].set(dirs)
+            dirs = _haar_bases(keys[g], sub, reps)  # (reps, sub)
+            full = jnp.zeros((reps, n_dims)).at[:, start:].set(dirs)
             blocks.append(full)
-        nhats = jnp.concatenate(blocks, axis=1)  # (B, R, D)
-        speeds = jnp.broadcast_to(speeds_r, (B, R))
-        perm = (
-            None
-            if shared_perm_key is not None
-            else jax.vmap(_perm_of)(all_keys[:, -1])
-        )
-    else:
+        nhats = jnp.concatenate(blocks, axis=0)  # (R, D)
+        return nhats, _perm_of(keys[-1])
 
-        def per_chain(chain_key):
-            blocks = []
-            keys = jax.random.split(chain_key, len(num_repeats) + 1)
-            for g, reps in enumerate(num_repeats):
-                start = int(sum(grade_dims[:g]))
-                sub = n_dims - start  # grade spans [start, nDims)
-                dirs = _haar_bases(keys[g], sub, reps)  # (reps, sub)
-                full = jnp.zeros((reps, n_dims)).at[:, start:].set(dirs)
-                blocks.append(full)
-            nhats = jnp.concatenate(blocks, axis=0)  # (R, D)
-            return nhats, _perm_of(keys[-1])
-
-        nhats, perm = jax.vmap(per_chain)(chain_keys)
-        speeds = jnp.broadcast_to(speeds_r, (B, R))
+    nhats, perm = jax.vmap(per_chain)(chain_keys)
+    speeds = jnp.broadcast_to(speeds_r, (B, R))
 
     if R > 1 and shared_perm_key is not None:
         # Batch-shared slot order: ONE (R, R) one-hot permutation applied
-        # as a single well-shaped (R, R) @ (R, B*D) GEMM.  The per-chain
-        # variant materialises a (B, R, R) one-hot (327 MB at the bench
-        # geometry, ~1.5 ms of pure HBM traffic,
-        # experiments/prof_dirs_parts2.py); sharing the *order* of slots
+        # as a single (R, R) @ (R, B*D) product.  The per-chain variant
+        # materialises a (B, R, R) one-hot; sharing the *order* of slots
         # across chains couples nothing — the directions themselves stay
         # per-chain random and chains are processed independently — and
         # is required anyway by the graded-likelihood engine.  Slot 0
         # stays slow-grade as the reference requires
         # (chordal_sampling.f90:132-139).  HIGHEST keeps the x*1 + 0
-        # sums bitwise identical to a gather (default MXU precision
-        # truncates operands to bf16).
+        # sums bitwise identical to a gather (a TF32 product would round
+        # the operands).
         perm1 = _perm_of(shared_perm_key)  # (R,)
         onehot = (
             perm1[:, None] == jnp.arange(R, dtype=perm1.dtype)[None, :]
         ).astype(nhats.dtype)  # (R_dst, R_src)
-        nhats = jnp.einsum(
-            "rq,bqd->brd", onehot, nhats, precision=jax.lax.Precision.HIGHEST
-        )
+        nhats = jnp.einsum("rq,bqd->brd", onehot, nhats, precision=_HI)
         speeds = jnp.broadcast_to(speeds_r[perm1], (B, R))
     elif R > 1:
         # per-chain shuffles (the reference's exact behaviour,
-        # shuffle_deck per chord set): 0/1 matmul on the MXU — a row
-        # gather costs ~7 ms/epoch (scalar-core bound)
+        # shuffle_deck per chord set), as a batched 0/1 product
         onehot = (
             perm[:, :, None] == jnp.arange(R, dtype=perm.dtype)[None, None, :]
         ).astype(nhats.dtype)  # (B, R_dst, R_src)
-        nhats = jnp.einsum(
-            "brq,bqd->brd", onehot, nhats, precision=jax.lax.Precision.HIGHEST
-        )
+        nhats = jnp.einsum("brq,bqd->brd", onehot, nhats, precision=_HI)
         speeds = (
             (onehot * speeds[:, None, :].astype(nhats.dtype))
             .sum(axis=2)
@@ -237,16 +181,13 @@ def make_directions(
         )
 
     # Whiten: chord direction in cube space is L @ n̂; initial width is
-    # 3x its length (chordal_sampling.f90:73-82).  Default MXU precision
-    # (operands truncated to bf16) is a deliberate tradeoff here — HIGHEST
-    # costs ~0.85 ms/epoch at the bench geometry (1409M -> 1111M evals/s)
-    # for a quantity whose rounding CANNOT bias the sampler: slice
-    # sampling is exact for any direction drawn independently of the
-    # current point, whitening only tunes proposal efficiency, w and the
-    # normalisation are computed from the same rounded product (self-
-    # consistent), and fast-grade directions' slow-block zeros survive
-    # exactly (0 is exact in bf16, L is lower-triangular).
-    whitened = jnp.einsum("brd,bed->bre", nhats, cholesky)
+    # 3x its length (chordal_sampling.f90:73-82).  TF32 rounding here could
+    # not bias the sampler (slice sampling is exact for any direction drawn
+    # independently of the current point, and w and the normalisation come
+    # from the same rounded product), but it would make every chain on a
+    # GPU differ from the CPU's from its first probe; full float32 costs
+    # little at these shapes (PERF.md).
+    whitened = jnp.einsum("brd,bed->bre", nhats, cholesky, precision=_HI)
     norms = jnp.sqrt(jnp.sum(whitened * whitened, axis=2))
     safe = jnp.maximum(norms, 1e-300)
     unit = whitened / safe[:, :, None]

@@ -1,7 +1,7 @@
 """Linear-algebra helpers for the sampler.
 
 Mirrors the semantics of the reference numerics layer
-(``src/polychord/utils.F90:621-711``) with TPU-friendly formulations:
+(``src/polychord/utils.F90:621-711``) with batched formulations:
 covariances via a single Gram matmul, Cholesky with the same
 "fall back to sqrt(trace/D) * I when not positive definite" behaviour.
 """

@@ -1,24 +1,22 @@
-"""The batched whitened slice-sampling engine — the TPU hot path.
+"""The batched whitened slice-sampling engine — the device hot path.
 
 This replaces the reference's per-process sequential slice chains
 (``src/polychord/chordal_sampling.f90:7-273``) and its MPI worker farm
-(``src/polychord/nested_sampling.F90:445-498``) with a single jitted kernel:
-B independent chains advance together, and every step of the inner loop
-performs ONE batched likelihood evaluation of all B probe points, so
-likelihood FLOPs always reach the MXU/VPU in (B, D) batches.
+(``src/polychord/nested_sampling.F90:445-498``) with a single jitted
+function: B independent chains advance together, and every step of the
+inner loop performs ONE batched likelihood evaluation of all B probe
+points, so the likelihood always runs as a (B, D) vectorised computation.
 
-Three engines share one contract (see also ``pallas_slice.py`` for the
-fused Mosaic kernel — the fastest path on TPU, ~2x this module's scan
-engine, same semantics, its own counter-based uniform stream).  The two
-XLA engines below produce bitwise-identical output (tested):
+Two engines share one contract and produce bitwise-identical output
+(tested):
 
 * ``engine="scan"`` — outer ``lax.scan`` over the R slice repeats, inner
-  masked ``lax.while_loop`` per repeat.  Simple, but every repeat waits for
-  the slowest of B lanes (~15% lane efficiency measured at B=8192).
+  masked ``lax.while_loop`` per repeat.  Every repeat waits for the slowest
+  of B lanes.  This is the default engine.
 * ``engine="ring"`` — ONE persistent ``lax.while_loop``; each lane advances
   through its own R repeats independently, so the tail sync happens once per
-  epoch instead of once per repeat.  The TPU-pathological per-lane output
-  scatter is avoided by construction:
+  epoch instead of once per repeat.  Per-lane output scatters are avoided
+  by construction:
     - accepted babies are appended to an iteration-indexed ring buffer
       (scalar-index ``dynamic_update_slice``, never a per-lane scatter),
       with the repeat index recorded as a per-slot sort key;
@@ -30,18 +28,8 @@ XLA engines below produce bitwise-identical output (tested):
   If a pathological epoch exhausts the ring (> ring_factor iterations per
   repeat on the slowest lane), the engine raises an overflow flag and the
   runner re-runs the epoch with the scan engine — results stay identical.
-
-  MEASURED VERDICT (v5e-lite, B=8192, R=100, 20-D): the scan engine wins by
-  ~8x.  Per-lane dynamically-indexed memory ops (the direction gather and
-  the per-slot sort-key write) cost 30-60us/iteration each on TPU — 6-12x a
-  whole lockstep body — so the ring engine's 5x iteration saving is wiped
-  out by a ~30x per-iteration penalty, and worst-lane totals exceed 12
-  iterations/repeat (ring overflow).  The scan engine touches memory only at
-  lockstep (scalar) indices and is ~2x above the empty-loop floor; remaining
-  headroom lies with a Pallas kernel that indexes per-lane state in VMEM
-  manually, not with XLA loop restructuring.  The ring engine is kept as a
-  tested, semantically-identical alternative for hardware where per-lane
-  gather/scatter is cheap (CPU) and as the blueprint for that Pallas kernel.
+  The ring engine trades fewer loop trips for per-lane dynamically indexed
+  memory operations (the direction gather and the sort-key write).
 
 Per-lane state machine for one repeat (Neal 2003, mirroring ``slice_sample``
 chordal_sampling.f90:163-273):
@@ -87,6 +75,8 @@ PH_STEP_L = 3
 PH_SHRINK = 4
 PH_DONE = 5
 
+#: the slice engines :func:`build_epoch_fn` can build
+ENGINES = ("scan", "ring")
 
 
 class EpochConfig(NamedTuple):
@@ -125,11 +115,9 @@ def _mark_vma(state, axis_name):
         return state
 
     def _mark(v):
-        if axis_name in getattr(jax.typeof(v), "vma", ()):
+        if axis_name in jax.typeof(v).vma:
             return v
-        if hasattr(jax.lax, "pcast"):
-            return jax.lax.pcast(v, (axis_name,), to="varying")
-        return jax.lax.pvary(v, (axis_name,))
+        return jax.lax.pcast(v, (axis_name,), to="varying")
 
     return jax.tree.map(_mark, state)
 
@@ -139,9 +127,10 @@ def build_epoch_fn(calc_point_batch, cfg: EpochConfig, axis_name: Optional[str] 
 
     ``epoch(key, seed_cube, bound, cholesky, lane_valid)`` runs one slice
     chain per lane and returns a single packed
-    (B, R*(2D+n_phi+1) + n_grades + 1) f32 buffer (see :func:`unpack_epoch`;
-    the final column is the ring-overflow flag, always 0 for the scan
-    engine) — one device->host transfer per epoch.
+    (B, R*(2D+n_phi+1) + n_grades + 1) f32 buffer (see :func:`unpack_epoch`)
+    — one device->host transfer per epoch.  The final column is the
+    ring-overflow flag for the ring engine, and the number of inner
+    ``while_loop`` trips the epoch took for the scan engine.
 
     ``axis_name`` is set when running inside ``shard_map`` over the chain
     batch; it only affects the *global* lane indices of the per-lane RNG
@@ -149,45 +138,11 @@ def build_epoch_fn(calc_point_batch, cfg: EpochConfig, axis_name: Optional[str] 
     """
     if cfg.engine == "ring":
         return build_epoch_fn_ring(calc_point_batch, cfg, axis_name)
-    if cfg.engine == "pallas":
-        from .pallas_slice import build_epoch_fn_pallas
-        from .pallas_slice_v3 import build_epoch_fn_pallas_v3
-        from .pallas_slice_v4 import build_epoch_fn_pallas_v4
-        from .pallas_slice_v5 import build_epoch_fn_pallas_v5
-
-        # fastest first (v4 292.7M vs v5 289.5M evals/s on chip,
-        # experiments/prof_v5_sc.py); the engines are decision-exact
-        # equivalents, so a build failure (e.g. an unexpected Mosaic
-        # lowering limit) degrades speed only
-        try:
-            return build_epoch_fn_pallas_v4(calc_point_batch, cfg, axis_name)
-        except Exception:
-            pass
-        try:
-            return build_epoch_fn_pallas_v5(calc_point_batch, cfg, axis_name)
-        except Exception:
-            pass
-        try:
-            return build_epoch_fn_pallas_v3(calc_point_batch, cfg, axis_name)
-        except Exception:
-            return build_epoch_fn_pallas(calc_point_batch, cfg, axis_name)
-    if cfg.engine == "pallas2":  # forced lockstep kernel (benchmark A/B)
-        from .pallas_slice import build_epoch_fn_pallas
-
-        return build_epoch_fn_pallas(calc_point_batch, cfg, axis_name)
-    if cfg.engine == "pallas3":  # forced v3 free-running kernel (A/B)
-        from .pallas_slice_v3 import build_epoch_fn_pallas_v3
-
-        return build_epoch_fn_pallas_v3(calc_point_batch, cfg, axis_name)
-    if cfg.engine == "pallas4":  # forced v4 sliding-window kernel (A/B)
-        from .pallas_slice_v4 import build_epoch_fn_pallas_v4
-
-        return build_epoch_fn_pallas_v4(calc_point_batch, cfg, axis_name)
-    if cfg.engine == "pallas5":  # forced v5 speculative kernel (A/B)
-        from .pallas_slice_v5 import build_epoch_fn_pallas_v5
-
-        return build_epoch_fn_pallas_v5(calc_point_batch, cfg, axis_name)
-    return build_epoch_fn_scan(calc_point_batch, cfg, axis_name)
+    if cfg.engine == "scan":
+        return build_epoch_fn_scan(calc_point_batch, cfg, axis_name)
+    raise ValueError(
+        f"unknown slice engine {cfg.engine!r}; choose one of {ENGINES}"
+    )
 
 
 def build_epoch_fn_scan(
@@ -394,7 +349,8 @@ def build_epoch_fn_scan(
                 jax.nn.one_hot(grade, n_grades, dtype=jnp.int32)
                 * st["nlike"][:, None]
             )  # (B, n_grades)
-            return (new_x0, new_aux) if graded else new_x0, (out, nlike_g)
+            carry = (new_x0, new_aux) if graded else new_x0
+            return carry, (out, nlike_g, st["iters"])
 
         per_repeat = (
             jnp.swapaxes(nhats, 0, 1),  # (R, B, D)
@@ -408,7 +364,9 @@ def build_epoch_fn_scan(
             if graded
             else seed_f
         )
-        x_final, (outs, nlike_g) = jax.lax.scan(one_repeat, init_carry, per_repeat)
+        x_final, (outs, nlike_g, trips) = jax.lax.scan(
+            one_repeat, init_carry, per_repeat
+        )
         # outs: (R, B, 2D+n_phi+1) -> (B, R*(2D+n_phi+1));
         # nlike_g: (R, B, n_grades) -> (B, n_grades)
         stride = 2 * D + cfg.n_phi + 1
@@ -418,7 +376,9 @@ def build_epoch_fn_scan(
             [
                 babies,
                 nlike.astype(real_dtype()),
-                jnp.zeros((B, 1), real_dtype()),  # overflow flag (never set)
+                # loop trips of this device's epoch (the ring engine's
+                # overflow-flag column)
+                jnp.broadcast_to(trips.sum().astype(real_dtype()), (B, 1)),
             ],
             axis=1,
         )
@@ -681,10 +641,18 @@ def unpack_epoch(packed, cfg: EpochConfig):
 
 
 def epoch_overflowed(packed) -> bool:
-    """True if a ring-engine epoch exhausted its ring (re-run with scan)."""
+    """True if a ring-engine epoch exhausted its ring (re-run with scan).
+    Meaningful for ring-engine output only."""
     import numpy as np
 
     return bool(np.asarray(packed[:, -1]).any())
+
+
+def epoch_loop_trips(packed) -> int:
+    """Inner ``while_loop`` trips a scan-engine epoch took on one device."""
+    import numpy as np
+
+    return int(np.asarray(packed)[0, -1])
 
 
 def pack_epoch_inputs(seed_cube, bound, cholesky):

@@ -2,7 +2,7 @@
 
 The reference scales across nodes with ``mpirun`` (every rank runs the same
 binary; rank assignment inside ``NestedSampling`` — SURVEY §5.8).  The
-TPU-native equivalent is JAX multi-controller SPMD: every host runs the same
+JAX equivalent is multi-controller SPMD: every host runs the same
 program, ``jax.distributed.initialize`` wires the processes together, and the
 chain batch shards over the global mesh exactly as it does over local
 devices (the epoch issues no collectives, so scaling is linear and the

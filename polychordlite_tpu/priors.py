@@ -33,13 +33,9 @@ def _coord_params(*vals):
     """If any parameter is a vector, return a list of per-coordinate PYTHON
     float tuples (broadcasting scalars); else None.
 
-    Per-coordinate scalars matter beyond convenience: python floats inline
-    as literals when the prior is traced INSIDE the Pallas slice kernel,
-    while array parameters (numpy or jnp) become jaxpr closure constants,
-    which ``pallas_call`` rejects ("captures constants ... pass them as
-    inputs") — demoting the run to the scan engine.  Vector-parameter
-    priors therefore unroll to per-coordinate literal arithmetic (the
-    parameter axis is axis 0, the tile convention of models/examples.py)."""
+    Vector-parameter priors unroll to per-coordinate literal arithmetic
+    (the parameter axis is axis 0, the convention of models/examples.py),
+    so the same prior evaluates a point ``(D,)`` or a block ``(D, ...)``."""
     arrs = [np.atleast_1d(np.asarray(v, dtype=np.float64)) for v in vals]
     n = max(a.size for a in arrs)
     if n == 1:

@@ -7,7 +7,8 @@ the legacy settings-object interface (:16-215).
 
 Differences from the reference (documented deviations):
 * the likelihood may be a JAX-traceable function (fast path: batched on the
-  TPU) or any plain Python/numpy callable (host-callback compatibility path);
+  device) or any plain Python/numpy callable (host-callback compatibility
+  path);
 * ``batch_size`` controls the width of the device chain nursery (the analogue
   of the MPI process count; like nprocs in the reference, changing it changes
   the exact sample stream but not the statistics).

@@ -20,17 +20,18 @@ def _emit(msg: str) -> None:
     print(msg, flush=True)
 
 
-def write_opening_statement(settings, version: str, platform: str) -> None:
+def write_opening_statement(settings, version: str, device) -> None:
     """Banner (feedback.f90:19-60; gated at normal level so feedback=0 runs
-    are fully quiet — minor deviation from the reference's title level)."""
+    are fully quiet — minor deviation from the reference's title level).
+    ``device`` is the JAX device the slice epochs run on."""
     if settings.feedback < NORMAL_FB:
         return
     _emit("=" * 50)
-    _emit(f"PolyChordLite-TPU {version}")
-    _emit("TPU-native nested sampling (JAX/XLA)")
+    _emit(f"polychordlite_tpu {version}")
+    _emit("nested sampling on JAX/XLA")
     _emit("=" * 50)
     if settings.feedback >= NORMAL_FB:
-        _emit(f"platform: {platform}")
+        _emit(f"device   : {device.platform} ({device.device_kind})")
         _emit(f"nDims    : {settings.nDims}")
         _emit(f"nDerived : {settings.nDerived}")
         _emit(f"nlive    : {settings.nlive}")

@@ -54,7 +54,7 @@ class RunMetrics:
 
     @contextmanager
     def device_epoch(self):
-        """Time one device epoch call (the TPU compute phase)."""
+        """Time one device epoch call (the device compute phase)."""
         t0 = time.time()
         try:
             yield
@@ -67,8 +67,7 @@ class RunMetrics:
         """Accumulate wall time of a named host phase (file writes, the
         per-baby insertion loop, clustering, ...); per-record deltas are
         published as ``host_breakdown`` so the administrator's cost
-        structure is observable per e-fold — the VERDICT r3 item-7
-        instrument."""
+        structure is observable per e-fold."""
         t0 = time.time()
         try:
             yield
@@ -100,8 +99,7 @@ class RunMetrics:
             },
         }
         if engine is not None:
-            # which engine actually executed the epochs since the last
-            # record — a demotion mid-run shows up here (VERDICT r4 weak-3)
+            # which engine executed the epochs since the last record
             rec["engine"] = engine
         if extra:
             rec.update(extra)

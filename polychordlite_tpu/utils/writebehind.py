@@ -4,7 +4,7 @@ The reference rewrites its full product suite (resume, posterior,
 equal-weights, live, dead, stats) every compression e-fold from the
 administrator (``src/polychord/nested_sampling.F90:329-334``) — for the
 Fortran administrator that cost is negligible against a slow likelihood,
-but for the TPU administrator consuming thousands of dead points per
+but for this administrator consuming thousands of dead points per
 second the text formatting is the single largest host phase (measured
 0.89 s of a 7.5 s quickstart, metrics.jsonl ``host_breakdown``).
 

@@ -4,7 +4,7 @@ A deliberately line-for-line (non-vectorised) port of
 ``/root/reference/src/polychord/clustering.f90`` (``NN_clustering`` :15-97,
 ``do_clustering_k`` :100-130, ``compute_knn`` :134-174, ``neighbours``
 :178-188) and ``relabel`` (``utils.F90:713-752``), used ONLY to ground-truth
-the production ``polychordlite_tpu/core/clustering.py`` (VERDICT r4 item 5).
+the production ``polychordlite_tpu/core/clustering.py``.
 
 Fidelity notes:
 

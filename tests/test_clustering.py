@@ -97,8 +97,8 @@ class TestDoClustering:
 class TestReferenceOracleParity:
     """Partition-identity against a direct transliteration of the reference
     algorithm (tests/clustering_oracle.py; clustering.f90:15-188) — the
-    production vectorised implementation must produce IDENTICAL partitions
-    (VERDICT r4 item 5)."""
+    production vectorised implementation must produce IDENTICAL
+    partitions."""
 
     def _check(self, sim):
         from clustering_oracle import (
@@ -134,8 +134,8 @@ class TestReferenceOracleParity:
             self._check(similarity_matrix_np(data))
 
     def test_live_point_snapshots(self):
-        """Saved snapshots from real gaussian_shells / eggbox runs
-        (experiments/make_clustering_snapshots.py)."""
+        """Saved live-point snapshots from real gaussian_shells / eggbox
+        runs (tests/data/clustering_snapshot_*.npy)."""
         import glob
         import os
 

@@ -92,10 +92,10 @@ class TestGradedLikelihood:
     def test_resolve_engine_forces_scan(self):
         from polychordlite_tpu.core.nested_sampling import resolve_engine
 
-        assert resolve_engine("auto", False, graded=True) == "scan"
+        assert resolve_engine("auto", graded=True) == "scan"
         # a forced non-scan engine is overridden loudly, not silently
         with pytest.warns(UserWarning, match="scan"):
-            assert resolve_engine("pallas", False, graded=True) == "scan"
+            assert resolve_engine("ring", graded=True) == "scan"
 
     def test_grade_dims_must_match_n_slow(self, tmp_path):
         """grade_dims[0] != n_slow would let fast chords move a slow

@@ -90,10 +90,9 @@ class TestPriors:
         assert np.isclose(float(p(jnp.array(0.5))), 3.0, atol=1e-6)
 
     def test_vector_bounds_unroll_to_literals(self):
-        """Vector-parameter priors must carry NO array constants (array
-        closure constants cannot lower into the pallas kernel and silently
-        demoted round-4 benchmark rows to the scan engine) and must match
-        per-coordinate arithmetic on both (D,) and tile (D, ...) inputs."""
+        """Vector-parameter priors carry NO array constants (they unroll to
+        per-coordinate literals) and match per-coordinate arithmetic on
+        both (D,) and block (D, ...) inputs."""
         p = priors.UniformPrior([-6.0, -2.5], [6.0, 2.5])
         x = np.array([0.5, 1.0])
         assert np.allclose(np.asarray(p(x)), [0.0, 2.5])

@@ -345,9 +345,9 @@ def test_fancy_feedback_prints_cluster_table(tmp_path, capsys):
 
 
 class TestEngineDefault:
-    """The public API must hand users the fast engine: run() defaults to
-    engine="auto", which resolves to the Pallas kernel on TPU with a traced
-    likelihood (one hot-path story, reference nested_sampling.F90:259)."""
+    """The public API hands users one engine: run() defaults to
+    engine="auto", which resolves to the scan engine on every backend (one
+    hot-path story, reference nested_sampling.F90:259)."""
 
     def test_run_default_engine_is_auto(self):
         import importlib
@@ -357,20 +357,46 @@ class TestEngineDefault:
         src = inspect.getsource(run_mod.run)
         assert '"engine": "auto"' in src
 
-    def test_resolve_engine_tpu_traced_is_pallas(self, monkeypatch):
+    @pytest.mark.parametrize(
+        "engine, resolved", [("auto", "scan"), ("scan", "scan"), ("ring", "ring")]
+    )
+    def test_resolve_engine_gpu_is_scan(self, monkeypatch, engine, resolved):
         import jax
 
         from polychordlite_tpu.core.nested_sampling import resolve_engine
 
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        assert resolve_engine("auto", uses_callback=False) == "pallas"
-        assert resolve_engine("auto", uses_callback=True) == "scan"
-        assert resolve_engine("scan", uses_callback=False) == "scan"
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        assert resolve_engine(engine) == resolved
+
+    @pytest.mark.parametrize(
+        "name", ["pallas", "pallas2", "pallas3", "pallas4", "pallas5", "fused"]
+    )
+    def test_removed_engine_names_raise(self, name):
+        from polychordlite_tpu.core.nested_sampling import resolve_engine
+        from polychordlite_tpu.ops.evaluate import make_batched_calculator
+        from polychordlite_tpu.ops.slice_kernel import (
+            EpochConfig,
+            build_epoch_fn,
+        )
+
+        with pytest.raises(ValueError, match="scan.*ring"):
+            resolve_engine(name)
+        calc = make_batched_calculator(
+            lambda c: c, lambda t: -jnp.sum(t**2), 2, 0
+        )
+        cfg = EpochConfig(n_dims=2, n_phi=1, grade_dims=(2,),
+                          num_repeats=(2,), engine=name)
+        with pytest.raises(ValueError, match="scan.*ring"):
+            build_epoch_fn(calc, cfg)
+
+    def test_run_with_removed_engine_raises(self, tmp_path):
+        with pytest.raises(ValueError, match="unknown slice engine"):
+            run_small(tmp_path, engine="pallas", max_ndead=10)
 
     def test_resolve_engine_cpu_is_scan(self):
         from polychordlite_tpu.core.nested_sampling import resolve_engine
 
-        assert resolve_engine("auto", uses_callback=False) == "scan"
+        assert resolve_engine("auto") == "scan"
 
     def test_settings_default_engine_auto(self):
         from polychordlite_tpu.settings import PolyChordSettings

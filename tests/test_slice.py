@@ -158,7 +158,9 @@ class TestRingMatchesScan:
         a = np.asarray(ring(key, seeds, bounds, chol, valid))
         b = np.asarray(scan(key, seeds, bounds, chol, valid))
         assert not a[:, -1].any(), "ring must not overflow here"
-        assert np.array_equal(a, b)
+        # the tail column is the ring's overflow flag, the scan's loop trips
+        assert np.array_equal(a[:, :-1], b[:, :-1])
+        assert (b[:, -1] == b[0, -1]).all() and b[0, -1] >= cfg.total_repeats
 
     def test_multigrade(self):
         self._compare(dict(grade_dims=(2, 1), num_repeats=(6, 3)))

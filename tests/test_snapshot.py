@@ -1,7 +1,6 @@
 """RunTimeInfo.snapshot(): the cheap write-behind copy must be a true
 point-in-time snapshot — later mutation of the live state can never leak
-into it (ADVICE r4: the deepcopy it replaces was O(ndead) on the critical
-path)."""
+into it (the deepcopy it replaces was O(ndead) on the critical path)."""
 
 import copy
 import math
